@@ -1,4 +1,4 @@
-// Native host-side runtime for the TPU k-mer clustering framework.
+// Native host-side runtime for the k-mer clustering framework.
 //
 // Three roles (C ABI, loaded via ctypes from
 // uniprot_kmer_based_clustering_tpu/io/native.py):

@@ -1,4 +1,4 @@
-"""Batched MXU agglomerative clustering: oracle, invariants, CLI."""
+"""Batched matmul agglomerative clustering: oracle, invariants, CLI."""
 
 import numpy as np
 

@@ -79,7 +79,7 @@ def test_weighted_matches_brute_force(wproblem):
     cw, cp, co, cm, pairs = _brute_weighted(sets, classes, weights, thr)
     cfg = PipelineConfig(
         threshold=10, weighted_threshold=thr, weighting="blosum62",
-        tile=16, strip=16, word_block=128, engine="mxu",
+        tile=16, strip=16, engine="mxu",
     )
     r = pairwise_similarity(bs, classes, cfg, weights=weights)
     assert (r.cross_weight, r.cross_pairs, r.cross_over, r.cross_max) == (
@@ -122,12 +122,12 @@ def test_pipeline_weighted_e2e(toy_fasta):
 
     cfg = PipelineConfig(
         weighting="blosum62", threshold=2, weighted_threshold=80,
-        tile=16, strip=32, word_block=128, engine="mxu",
+        tile=16, strip=32, engine="mxu",
     )
     r = run_pipeline(toy_fasta, cfg)
     raw = run_pipeline(
         toy_fasta,
-        PipelineConfig(threshold=2, tile=16, strip=32, word_block=128,
+        PipelineConfig(threshold=2, tile=16, strip=32, 
                        engine="xla"),
     )
     # same pair support (weights are strictly positive), different scores
@@ -144,7 +144,7 @@ import pytest
 def test_golden_weighted_full_dataset(arg_fasta):
     """BLOSUM62-weighted config (BASELINE config #3) full-dataset
     constants, derived via the scipy oracle and cross-checked against
-    the TPU MXU engine: Σ weighted cross score 124,363,524; pairs over
+    the device matmul engine: Σ weighted cross score 124,363,524; pairs over
     the scaled gate (10 × mean weight) 465; max weighted score 14,781."""
     import numpy as np
     import scipy.sparse as sp

@@ -79,8 +79,9 @@ def test_golden_cluster_structures_full_dataset(arg_fasta):
       * tree (src/tree.rs exact semantics, file order): 178 root
         children.
     (The agglomerative model's full-dataset constant — 123 clusters —
-    is TPU-measured only: its per-round full-square signature matmul is
-    impractical on the 1-core CPU test runner.)"""
+    is gated by bench_engines.py on the device only: its per-round
+    full-square signature matmul is impractical on the CPU test
+    runner.)"""
     import numpy as np
 
     from uniprot_kmer_based_clustering_tpu.io import read_fasta

@@ -14,7 +14,7 @@ from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu.pipeline import run_pipeline
 from uniprot_kmer_based_clustering_tpu.similarity.query import QueryServer
 
-CFG = dict(tile=16, strip=32, word_block=128, engine="xla", threshold=2)
+CFG = dict(tile=16, strip=32, engine="xla", threshold=2)
 
 
 def _write(path, recs):

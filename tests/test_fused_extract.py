@@ -121,12 +121,12 @@ def test_pipeline_fused_matches_two_pass():
     )
     classes = rng.integers(0, 3, n).astype(np.int32)
     base = PipelineConfig(
-        threshold=3, tile=16, word_block=128, engine="mxu", strip=16
+        threshold=3, tile=16, engine="mxu", strip=16
     )
     r_two = pairwise_similarity(bs, classes, base)
     for extract_k in (0, 8):  # auto-sized and explicitly tiny (overflow)
         cfg = PipelineConfig(
-            threshold=3, tile=16, word_block=128, engine="mxu", strip=16,
+            threshold=3, tile=16, engine="mxu", strip=16,
             extract="fused", extract_k=extract_k,
         )
         r_fused = pairwise_similarity(bs, classes, cfg)
@@ -148,12 +148,12 @@ def test_pipeline_fused_falls_back_on_strip_schedule():
     classes = rng.integers(0, 3, n).astype(np.int32)
     r_two = pairwise_similarity(
         bs, classes,
-        PipelineConfig(threshold=3, tile=16, word_block=128, engine="mxu"),
+        PipelineConfig(threshold=3, tile=16, engine="mxu"),
     )
     r_fused = pairwise_similarity(
         bs, classes,
         PipelineConfig(
-            threshold=3, tile=16, word_block=128, engine="mxu",
+            threshold=3, tile=16, engine="mxu",
             extract="fused",
         ),
     )
@@ -176,30 +176,17 @@ def test_pipeline_fused_weighted_matches_two_pass():
     classes = rng.integers(0, 3, n).astype(np.int32)
     w = rng.integers(1, 6, bs.words.shape[1] * 32).astype(np.int8)
     base = PipelineConfig(
-        threshold=3, tile=16, word_block=128, engine="mxu", strip=16
+        threshold=3, tile=16, engine="mxu", strip=16
     )
     r_two = pairwise_similarity(bs, classes, base, weights=w)
     for extract_k in (0, 8):  # auto-sized and explicitly tiny (overflow)
         cfg = PipelineConfig(
-            threshold=3, tile=16, word_block=128, engine="mxu", strip=16,
+            threshold=3, tile=16, engine="mxu", strip=16,
             extract="fused", extract_k=extract_k,
         )
         r_fused = pairwise_similarity(bs, classes, cfg, weights=w)
         assert np.array_equal(r_fused.pairs, r_two.pairs)
     assert len(r_two.pairs) > 0
-
-
-def test_fused_rejects_explicit_pallas_epilogue():
-    """The fused survivor mask is an intermediate of the xla stats
-    epilogue; an explicit pallas request must error, not silently
-    measure xla."""
-    words, classes = _dense_problem()
-    with pytest.raises(ValueError, match="pallas"):
-        sweep_mxu(
-            jnp.asarray(words), jnp.asarray(classes), 120, 40,
-            strip=32, block=16, schedule="scan",
-            fused_k=8, stats_engine="pallas",
-        )
 
 
 def test_config_rejects_bad_extract():

@@ -96,7 +96,7 @@ def test_pipeline_device_index_k7_matches_host(toy_fasta):
     from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
     from uniprot_kmer_based_clustering_tpu.pipeline import run_pipeline
 
-    cfg = dict(tile=16, strip=32, word_block=128, engine="xla",
+    cfg = dict(tile=16, strip=32, engine="xla",
                threshold=2, k=7)
     r_host = run_pipeline(toy_fasta, PipelineConfig(**cfg))
     r_dev = run_pipeline(

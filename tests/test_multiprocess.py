@@ -1,6 +1,6 @@
 """True multi-process distributed test: 2 jax.distributed processes × 2
 virtual CPU devices each, gloo collectives — the closest CPU analogue of a
-2-host TPU slice (SURVEY.md §4: multi-host testing is greenfield; §5:
+2-host cluster (SURVEY.md §4: multi-host testing is greenfield; §5:
 doc-freq psum + ring sweep + final all-gather are the only cross-host
 traffic).
 
@@ -145,7 +145,7 @@ def test_two_process_full_pipeline(tmp_path):
     ref = run_pipeline(
         fasta,
         PipelineConfig(
-            tile=16, strip=32, word_block=128, engine="xla", threshold=2
+            tile=16, strip=32, engine="xla", threshold=2
         ),
     )
     rep = ref.parity_report()

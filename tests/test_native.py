@@ -366,7 +366,7 @@ def test_sparse_sweep_fuzz_parity(rng):
 
 
 def test_sparse_sweep_weighted_matches_mxu(toy_fasta):
-    """BLOSUM-weighted native sparse sweep == weighted MXU engine:
+    """BLOSUM-weighted native sparse sweep == weighted matmul engine:
     identical PairwiseResult counters and pair lists."""
     from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
     from uniprot_kmer_based_clustering_tpu.io.fasta import read_fasta

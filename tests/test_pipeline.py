@@ -6,7 +6,7 @@ import pytest
 from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu.pipeline import run_pipeline
 
-CFG = dict(tile=16, strip=32, word_block=128, engine="xla", threshold=2)
+CFG = dict(tile=16, strip=32, engine="xla", threshold=2)
 
 
 def test_end_to_end_toy(toy_fasta):
@@ -106,7 +106,7 @@ def test_elastic_resume_across_mesh_sizes(toy_fasta, tmp_path):
 @pytest.mark.golden
 def test_golden_full_dataset_7mer(arg_fasta):
     """7-mer config (BASELINE config #2) goldens, derived once from the
-    scipy oracle and cross-checked against the TPU MXU engine."""
+    scipy oracle and cross-checked against the device matmul engine."""
     from uniprot_kmer_based_clustering_tpu.io import read_fasta
     from uniprot_kmer_based_clustering_tpu.kmers import (
         build_index,
@@ -121,8 +121,8 @@ def test_golden_full_dataset_7mer(arg_fasta):
     assert idx.n_repeated == 288551
     assert idx.nnz == 2929337
 
-    # pairwise stage goldens (scipy oracle; cross-checked on the TPU MXU
-    # engine): cross-AMR pairs 22,732; Σ shared 7-mers 99,250; pairs
+    # pairwise stage goldens (scipy oracle; cross-checked on the device
+    # matmul engine): cross-AMR pairs 22,732; Σ shared 7-mers 99,250; pairs
     # sharing > 10 → 463 (max shared 565)
     import scipy.sparse as sp
 
@@ -149,8 +149,8 @@ def test_golden_full_dataset_7mer(arg_fasta):
 def test_golden_full_dataset(arg_fasta):
     """Full-dataset golden parity via the host/scipy path (slow: ~30 s).
 
-    The device engines are checked against the same goldens on real TPU by
-    bench.py; here scipy stands in so the oracle runs on CPU-only CI.
+    The device engines are checked against the same goldens on the device
+    by bench.py; here scipy stands in so the oracle runs on CPU-only CI.
     """
     import scipy.sparse as sp
 
@@ -514,8 +514,7 @@ def test_canonical_lane_sort_contract():
     """The serving top-k epilogue's lane canonicalization: count desc,
     index asc on ties, INT32_MIN sentinels LAST (bitwise-not keys are
     overflow-safe where plain negation is not). Exists because
-    lax.top_k's tie order varies with lane width on TPU — caught by the
-    100k hardware parity gate."""
+    lax.top_k's tie order varies with lane width between backends."""
     import jax.numpy as jnp
 
     from uniprot_kmer_based_clustering_tpu.similarity.query import (

@@ -108,7 +108,7 @@ def test_doc_freq_psum_matches_host():
 
 
 def test_ring_weighted_matches_mxu():
-    """BLOSUM-weighted ring sweep == single-chip weighted MXU sweep."""
+    """BLOSUM-weighted ring sweep == single-chip weighted matmul sweep."""
     from uniprot_kmer_based_clustering_tpu.ops.bitmul import sweep_mxu
 
     bs, classes, n = _problem(1024)
@@ -164,7 +164,7 @@ def test_ring_2d_matches_oracle(hc, cc):
 
 
 def test_ring_2d_weighted_matches_mxu():
-    """BLOSUM-weighted 2-D ring == single-chip weighted MXU sweep."""
+    """BLOSUM-weighted 2-D ring == single-chip weighted matmul sweep."""
     from uniprot_kmer_based_clustering_tpu.ops.bitmul import sweep_mxu
     from uniprot_kmer_based_clustering_tpu.parallel import (
         make_mesh_2d,
@@ -218,7 +218,7 @@ def test_kaxis_matches_oracle(d):
 
 
 def test_kaxis_weighted_matches_mxu():
-    """BLOSUM-weighted K-axis sweep == single-chip weighted MXU sweep."""
+    """BLOSUM-weighted K-axis sweep == single-chip weighted matmul sweep."""
     from uniprot_kmer_based_clustering_tpu.ops.bitmul import sweep_mxu
     from uniprot_kmer_based_clustering_tpu.parallel import (
         sharded_pairwise_similarity_kaxis,
@@ -243,42 +243,32 @@ def test_kaxis_weighted_matches_mxu():
     assert np.array_equal(px, ps)
 
 
-@pytest.mark.parametrize("d", [1, 4])
-def test_ring_pallas_stats_interpret(d):
-    """Ring sweep with the Pallas stats epilogue (interpret mode on CPU)
-    == the XLA stats path, bit-exactly."""
-    bs, classes, n = _problem(1024)
-    mesh = make_mesh(d)
-    rs_x, th_x, _ = sharded_pairwise_similarity(
-        mesh, bs.words, classes, n, THR, block_tile=128,
-        stats_engine="xla",
-    )
-    rs_p, th_p, _ = sharded_pairwise_similarity(
-        mesh, bs.words, classes, n, THR, block_tile=128,
-        stats_engine="pallas_interpret",
-    )
-    assert np.array_equal(rs_p, rs_x)
-    assert np.array_equal(th_p, th_x)
-
-
-def test_ring_2d_pallas_stats_interpret():
+@pytest.mark.parametrize("layout", ["ring1", "ring4", "ring2x4"])
+def test_ring_epilogue_parity(layout):
+    """The two XLA statistics epilogues of the ring sweeps — the flat
+    mask/reduce chain ("xla") and the tiled reduce behind an
+    optimization barrier ("xla_tiled_barrier", the "auto" default) —
+    are bit-identical on the flat ring (D=1, 4) and the 2-D ring."""
     from uniprot_kmer_based_clustering_tpu.parallel import (
         make_mesh_2d,
         sharded_pairwise_similarity_2d,
     )
 
     bs, classes, n = _problem(1024)
-    mesh = make_mesh_2d(2, 4)
-    rs_x, th_x, _ = sharded_pairwise_similarity_2d(
-        mesh, bs.words, classes, n, THR, block_tile=128,
-        stats_engine="xla",
+    if layout == "ring2x4":
+        mesh, fn = make_mesh_2d(2, 4), sharded_pairwise_similarity_2d
+    else:
+        mesh, fn = make_mesh(int(layout[4:])), sharded_pairwise_similarity
+    rs_x, th_x, _ = fn(
+        mesh, bs.words, classes, n, THR, block_tile=128, stats_engine="xla"
     )
-    rs_p, th_p, _ = sharded_pairwise_similarity_2d(
+    rs_t, th_t, _ = fn(
         mesh, bs.words, classes, n, THR, block_tile=128,
-        stats_engine="pallas_interpret",
+        stats_engine="xla_tiled_barrier",
     )
-    assert np.array_equal(rs_p, rs_x)
-    assert np.array_equal(th_p, th_x)
+    assert np.array_equal(rs_t, rs_x)
+    assert np.array_equal(th_t, th_x)
+    assert th_x[:, 0].sum() > 0  # the gate is not vacuous
 
 
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
@@ -392,8 +382,8 @@ def test_sharded_extraction_kaxis_matches(d):
 
 @pytest.mark.parametrize("d", [1, 4])
 def test_sharded_extraction_topk_path_matches(d):
-    """The per-sub-tile top_k compaction (the TPU default when tile_cap
-    is passed) == the scatter path == single-chip."""
+    """The per-sub-tile top_k compaction (used when tile_cap is passed)
+    == the scatter path == single-chip."""
     from uniprot_kmer_based_clustering_tpu.parallel import (
         sharded_extract_pairs,
     )
@@ -714,7 +704,7 @@ def test_pipeline_mesh_csr_packless(tmp_path):
                 seq[p] = aas[rng.integers(0, 20)]
             f.write(f">P{i}|x|U|class{i % 3}|g\n{''.join(seq)}\n")
 
-    base_cfg = dict(threshold=3, tile=16, word_block=128,
+    base_cfg = dict(threshold=3, tile=16, 
                     cluster="components")
     ref = run_pipeline(
         str(fasta), PipelineConfig(**base_cfg), mesh=make_mesh(4)

@@ -58,16 +58,8 @@ def _check(result, brute, pairs):
 
 def test_xla_engine(problem):
     bs, classes, brute, pairs = problem
-    cfg = PipelineConfig(threshold=THR, tile=16, word_block=128, engine="xla")
+    cfg = PipelineConfig(threshold=THR, tile=16, engine="xla")
     _check(pairwise_similarity(bs, classes, cfg), brute, pairs)
-
-
-def test_pallas_interpret_engine(problem):
-    bs, classes, brute, pairs = problem
-    cfg = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="popcount"
-    )
-    _check(pairwise_similarity(bs, classes, cfg, interpret=True), brute, pairs)
 
 
 def test_mxu_engine_on_cpu(problem):
@@ -97,7 +89,7 @@ def test_mxu_engine_on_cpu(problem):
 def test_cross_amr_only_false(problem):
     bs, classes, brute, _ = problem
     cfg = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="xla",
+        threshold=THR, tile=16, engine="xla",
         cross_amr_only=False,
     )
     r = pairwise_similarity(bs, classes, cfg)
@@ -107,7 +99,7 @@ def test_cross_amr_only_false(problem):
 def test_threshold_zero_includes_all_sharing_pairs(problem):
     bs, classes, brute, _ = problem
     cfg = PipelineConfig(
-        threshold=0, tile=16, word_block=128, engine="xla"
+        threshold=0, tile=16, engine="xla"
     )
     r = pairwise_similarity(bs, classes, cfg)
     assert r.pairs.shape[0] == brute["cp"]
@@ -187,7 +179,7 @@ def test_extract_pairs_coalesced_matches_bruteforce():
         th[:, 0].astype(np.int64), tile, n_pad,
     ) is not None, "test case must actually exercise the coalesced path"
 
-    # force both TPU-default strategies on CPU for path coverage, and
+    # force both default strategies explicitly for path coverage, and
     # check the plain scatter path agrees
     pairs = extract_pairs(
         jnp.asarray(words), classes, th, tl, n=n, threshold=40,

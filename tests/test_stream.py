@@ -26,7 +26,7 @@ def problem():
     classes = rng.integers(0, 3, n).astype(np.int32)
     ref = pairwise_similarity(
         bs, classes,
-        PipelineConfig(threshold=THR, tile=16, word_block=128, engine="xla"),
+        PipelineConfig(threshold=THR, tile=16, engine="xla"),
     )
     return bs, classes, ref
 
@@ -43,7 +43,7 @@ def _check_same(a, b):
 def test_stream_engine_matches_xla(problem):
     bs, classes, ref = problem
     cfg = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="stream"
+        threshold=THR, tile=16, engine="stream"
     )
     _check_same(pairwise_similarity(bs, classes, cfg), ref)
 
@@ -55,7 +55,7 @@ def test_stream_blocking_invariance(problem, bs_rows):
     and one that doesn't divide the padded row count (48)."""
     bs, classes, ref = problem
     cfg = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="stream",
+        threshold=THR, tile=16, engine="stream",
         strip=bs_rows,
     )
     _check_same(pairwise_similarity(bs, classes, cfg), ref)
@@ -113,13 +113,13 @@ def test_stream_dense_scatter_path(problem, monkeypatch):
     bs, classes, _ = problem
     ref = pairwise_similarity(
         bs, classes,
-        PipelineConfig(threshold=0, tile=16, word_block=128, engine="xla"),
+        PipelineConfig(threshold=0, tile=16, engine="xla"),
     )
     monkeypatch.setattr(stream_mod, "TOPK_CAP", 1)
     got = pairwise_similarity(
         bs, classes,
         PipelineConfig(
-            threshold=0, tile=16, word_block=128, engine="stream", strip=32
+            threshold=0, tile=16, engine="stream", strip=32
         ),
     )
     _check_same(got, ref)
@@ -130,14 +130,14 @@ def test_stream_cross_amr_false(problem):
     ref = pairwise_similarity(
         bs, classes,
         PipelineConfig(
-            threshold=THR, tile=16, word_block=128, engine="xla",
+            threshold=THR, tile=16, engine="xla",
             cross_amr_only=False,
         ),
     )
     got = pairwise_similarity(
         bs, classes,
         PipelineConfig(
-            threshold=THR, tile=16, word_block=128, engine="stream",
+            threshold=THR, tile=16, engine="stream",
             cross_amr_only=False, strip=32,
         ),
     )
@@ -152,11 +152,11 @@ def test_stream_weighted_matches_mxu(problem):
     rng = np.random.default_rng(3)
     weights = rng.integers(1, 12, bs.w_pad * 32).astype(np.int8)
     cfg_m = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="mxu",
+        threshold=THR, tile=16, engine="mxu",
         weighting="blosum62", weighted_threshold=THR * 6,
     )
     cfg_s = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="stream",
+        threshold=THR, tile=16, engine="stream",
         weighting="blosum62", weighted_threshold=THR * 6, strip=32,
     )
     ref = pairwise_similarity(bs, classes, cfg_m, weights=weights)
@@ -169,7 +169,7 @@ def test_stream_fused_matches_two_pass(problem):
     the two-pass stream extractor."""
     bs, classes, ref = problem
     cfg = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="stream",
+        threshold=THR, tile=16, engine="stream",
         extract="fused", strip=32,
     )
     _check_same(pairwise_similarity(bs, classes, cfg), ref)
@@ -182,10 +182,10 @@ def test_stream_fused_overflow_redo(problem):
     bs, classes, _ = problem
     ref = pairwise_similarity(
         bs, classes,
-        PipelineConfig(threshold=0, tile=16, word_block=128, engine="xla"),
+        PipelineConfig(threshold=0, tile=16, engine="xla"),
     )
     cfg = PipelineConfig(
-        threshold=0, tile=16, word_block=128, engine="stream",
+        threshold=0, tile=16, engine="stream",
         extract="fused", extract_k=8, strip=32,  # 8 << 16*16 tile area
     )
     _check_same(pairwise_similarity(bs, classes, cfg), ref)
@@ -197,14 +197,14 @@ def test_stream_fused_all_pairs(problem):
     ref = pairwise_similarity(
         bs, classes,
         PipelineConfig(
-            threshold=THR, tile=16, word_block=128, engine="xla",
+            threshold=THR, tile=16, engine="xla",
             cross_amr_only=False,
         ),
     )
     got = pairwise_similarity(
         bs, classes,
         PipelineConfig(
-            threshold=THR, tile=16, word_block=128, engine="stream",
+            threshold=THR, tile=16, engine="stream",
             cross_amr_only=False, extract="fused", strip=32,
         ),
     )
@@ -219,7 +219,7 @@ def test_stream_fused_weighted(problem):
     rng = np.random.default_rng(5)
     weights = rng.integers(1, 12, bs.w_pad * 32).astype(np.int8)
     kwargs = dict(
-        threshold=THR, tile=16, word_block=128,
+        threshold=THR, tile=16, 
         weighting="blosum62", weighted_threshold=THR * 6, strip=32,
     )
     ref = pairwise_similarity(
@@ -240,7 +240,7 @@ def test_stream_fused_extract_k_over_tile_area(problem):
     the clamped value on BOTH sides)."""
     bs, classes, ref = problem
     cfg = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="stream",
+        threshold=THR, tile=16, engine="stream",
         extract="fused", extract_k=4096, strip=32,  # 4096 >> 16*16
     )
     _check_same(pairwise_similarity(bs, classes, cfg), ref)
@@ -270,14 +270,14 @@ def test_stream_fuzz_parity():
             ref = pairwise_similarity(
                 bs, classes,
                 PipelineConfig(
-                    threshold=thr, tile=8, word_block=128, engine="xla",
+                    threshold=thr, tile=8, engine="xla",
                     cross_amr_only=cross_only,
                 ),
             )
             got = pairwise_similarity(
                 bs, classes,
                 PipelineConfig(
-                    threshold=thr, tile=8, word_block=128, engine="stream",
+                    threshold=thr, tile=8, engine="stream",
                     cross_amr_only=cross_only, strip=16,
                 ),
             )
@@ -418,7 +418,7 @@ def test_stream_fused_redo_grouped(problem):
     bs, classes, _ = problem
     ref = pairwise_similarity(
         bs, classes,
-        PipelineConfig(threshold=0, tile=16, word_block=128, engine="xla"),
+        PipelineConfig(threshold=0, tile=16, engine="xla"),
     )
     cls = np.full(bs.n_pad, -1, np.int32)
     cls[: bs.n] = classes
@@ -662,7 +662,7 @@ def test_stream_onepass_via_config(problem):
     """extract='onepass' through the production dispatch."""
     bs, classes, ref = problem
     cfg = PipelineConfig(
-        threshold=THR, tile=16, word_block=128, engine="stream",
+        threshold=THR, tile=16, engine="stream",
         extract="onepass", strip=32,
     )
     _check_same(pairwise_similarity(bs, classes, cfg), ref)
@@ -674,7 +674,7 @@ def test_onepass_requires_stream_engine(problem):
         pairwise_similarity(
             bs, classes,
             PipelineConfig(
-                threshold=THR, tile=16, word_block=128, engine="xla",
+                threshold=THR, tile=16, engine="xla",
                 extract="onepass",
             ),
         )
@@ -694,7 +694,7 @@ def test_stream_empty_result():
     r = pairwise_similarity(
         bs, classes,
         PipelineConfig(
-            threshold=10**6, tile=16, word_block=128, engine="stream"
+            threshold=10**6, tile=16, engine="stream"
         ),
     )
     assert r.pairs.shape == (0, 3)
@@ -965,7 +965,7 @@ def test_stream_csr_via_config(problem):
     got = pairwise_similarity(
         bs, classes,
         PipelineConfig(
-            threshold=THR, tile=16, word_block=128, engine="stream",
+            threshold=THR, tile=16, engine="stream",
             extract="onepass", stream_source="csr",
         ),
         index=_Idx(bs.words),
@@ -980,7 +980,7 @@ def test_stream_csr_via_config(problem):
         pairwise_similarity(
             bs, classes,
             PipelineConfig(
-                threshold=THR, tile=16, word_block=128,
+                threshold=THR, tile=16, 
                 engine="stream", stream_source="csr",
             ),
         )
@@ -1008,12 +1008,12 @@ def test_pipeline_packless_csr(tmp_path):
             f.write(f">P{i}|x|U|class{i % 3}|g\n{''.join(seq)}\n")
 
     ref = cluster_fasta(
-        str(fasta), engine="xla", threshold=3, tile=16, word_block=128,
+        str(fasta), engine="xla", threshold=3, tile=16, 
         cluster="components",
     )
     got = cluster_fasta(
         str(fasta), engine="stream", stream_source="csr", threshold=3,
-        tile=16, word_block=128, cluster="components",
+        tile=16, cluster="components",
     )
     assert isinstance(got.bitset, VirtualBitsetMatrix)
     assert got.bitset.n_pad == ref.bitset.n_pad

@@ -42,7 +42,7 @@ def problem():
     classes = rng.integers(0, 3, n).astype(np.int32)
     ref = pairwise_similarity(
         bs, classes,
-        PipelineConfig(threshold=THR, tile=16, word_block=128, engine="xla"),
+        PipelineConfig(threshold=THR, tile=16, engine="xla"),
     )
     src = CSRBlockSource(rows, cols, bs.n_pad, bs.w_pad)
     return bs, rows, cols, classes, ref, src

@@ -199,7 +199,7 @@ def test_align_pairs_sw_windowed_equals_full(toy_fasta, tmp_path):
 
     res = cluster_fasta(
         toy_fasta, engine="xla", threshold=2, tile=16, strip=32,
-        word_block=128,
+        
     )
     w = str(tmp_path / "w.tsv")
     f = str(tmp_path / "f.tsv")
@@ -217,7 +217,7 @@ def test_align_pairs_sw_small_batches_keep_order(toy_fasta, tmp_path):
 
     res = cluster_fasta(
         toy_fasta, engine="xla", threshold=2, tile=16, strip=32,
-        word_block=128,
+        
     )
     assert len(res.pairwise.pairs) > 3
     one = str(tmp_path / "one.tsv")

@@ -317,7 +317,7 @@ def test_seven_mer_bitset_tree_parity(toy_fasta):
 
     res = run_pipeline(
         toy_fasta,
-        PipelineConfig(k=7, tile=16, strip=32, word_block=128,
+        PipelineConfig(k=7, tile=16, strip=32, 
                        engine="xla", threshold=2, cluster="tree"),
     )
     n = res.table.n

@@ -1,14 +1,14 @@
-"""TPU-native protein k-mer clustering framework.
+"""Protein k-mer similarity and clustering on the GPU, in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``Isabella136/uniprot_kmer_based_clustering`` (a Rust CLI that builds a
 258M-edge protein similarity multigraph on CPU; see ``SURVEY.md``).
 
 Instead of materializing one edge per (k-mer, protein-pair) occurrence
 (reference ``src/graph/mod.rs:39-193``), this framework packs each protein's
 repeated-k-mer set into a bitset row of a ``[N, W]`` uint32 matrix and
-computes pairwise shared-k-mer counts as a tiled AND+popcount sweep on the
-TPU vector unit — mathematically identical to the reference's
+computes pairwise shared-k-mer counts as int8 matmuls (or a tiled
+AND+popcount sweep) on the device — mathematically identical to the reference's
 ``Graph::new → remove_uninteresting_edges → combine_edges`` chain, because
 ``|kmers(A) ∩ kmers(B)|`` is the only quantity consumed downstream.
 
@@ -16,13 +16,14 @@ Layout:
   io/         host FASTA ingest → protein tables (reference src/main.rs:62-74)
   kmers/      base-21 k-mer encoding, doc-freq index, rank hashing, bitsets
               (reference src/protein.rs:9-54, src/main.rs:77-199)
-  ops/        Pallas TPU kernels (popcount tiles, weighted bitplane variant)
-  similarity/ single-chip blocked pairwise sweep + stats + pair extraction
+  ops/        sweep engines: int8 matmul, AND+popcount, out-of-core stream
+  similarity/ single-device pairwise sweep + stats + pair extraction
               (reference src/graph/)
   parallel/   mesh construction, sharded ring sweep over devices
   models/     clustering models: union-find components + hierarchical tree
               (reference src/tree.rs)
-  align/      host-side diamond blastp orchestration (src/graph/mod.rs:195-319)
+  align/      diamond orchestration and on-device Smith-Waterman
+              (src/graph/mod.rs:195-319)
   utils/      BLOSUM62 data, timers, checkpointing
 """
 

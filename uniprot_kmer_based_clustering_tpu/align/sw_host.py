@@ -3,7 +3,7 @@
 The reference delegates alignment to the external ``diamond blastp``
 binary (src/graph/mod.rs:266-293). This module is the exact-DP oracle
 for the framework's own aligner: :mod:`align.sw_device` scores every
-pair batched on the TPU; the host traceback here recovers the
+pair batched on the device; the host traceback here recovers the
 outfmt-6 fields (coordinates, length, pident) for the few pairs that
 reach the output (465 on the bundled dataset).
 

@@ -36,29 +36,28 @@ class PipelineConfig:
                                               # field is None)
 
     # --- device execution ---
-    engine: str = "auto"            # "auto" | "mxu" | "popcount" | "xla"
-                                    #   | "native" | "stream"
-                                    #   mxu: int8 binary-matmul sweep (fastest)
-                                    #   popcount: packed-bitset Pallas kernel
-                                    #     (8× less HBM; memory-lean at scale)
-                                    #   xla: popcount fallback, runs anywhere
+    engine: str = "auto"            # "auto" | "mxu" | "xla" | "native"
+                                    #   | "stream"
+                                    #   mxu: int8 matmul sweep
+                                    #   xla: packed AND+popcount sweep
                                     #   native: threaded C++ host sweep (the
                                     #     fast no-accelerator path)
-                                    #   stream: out-of-core MXU sweep — the
-                                    #     packed matrix stays in host RAM and
-                                    #     row blocks stream through the device
-                                    #     (corpora beyond one chip's HBM)
-                                    #   auto: mxu on TPU; native on the cpu
-                                    #     platform when built; xla otherwise
-                                    #     (GPUs keep the device engine)
+                                    #   stream: out-of-core matmul sweep —
+                                    #     the packed matrix stays in host
+                                    #     RAM and row blocks stream through
+                                    #     the device (corpora beyond one
+                                    #     device's memory)
+                                    #   auto: native on the cpu platform
+                                    #     when built; otherwise the device
+                                    #     engine that measured faster
+                                    #     (similarity.pairwise.resolve_engine)
     tile: int = 512                 # protein-axis tile for the pairwise sweep
-    strip: Optional[int] = None     # stationary strip rows for the MXU engine
-                                    # (None = auto: one full-square call when
-                                    # the counts matrix fits HBM, else strips)
-    word_block: int = 512           # k-mer-word-axis block inside the kernel
+    strip: Optional[int] = None     # stationary strip rows for the mxu engine
+                                    # (None = auto: one full-square call for
+                                    # small inputs, else strips or the scan)
     extract: str = "auto"           # "auto" | "two_pass" | "fused" |
                                     #   "onepass": pair
-                                    #   recovery strategy for the MXU engine.
+                                    #   recovery strategy for the mxu engine.
                                     #   two_pass recomputes only the tiles
                                     #   that reported hits (optimal in the
                                     #   sparse-hit regime — the bundled
@@ -86,7 +85,7 @@ class PipelineConfig:
                                     #   onepass: TOTAL device pair-buffer
                                     #     rows for the whole sweep, rounded
                                     #     to 128 (typical millions).
-                                    #   0 = auto-size from the HBM budget
+                                    #   0 = auto-size from the memory budget
                                     #   in both modes; capacity misses are
                                     #   detected exactly and redone.
     stream_source: str = "host"     # stream-engine block source:
@@ -103,14 +102,14 @@ class PipelineConfig:
                                     #     and extract='onepass'.
     index_engine: str = "host"      # "host" | "device": where the doc-freq
                                     # index + bitset are built. "device"
-                                    # runs on TPU — k=5: dense-universe
+                                    # runs on the accelerator — k=5: dense-universe
                                     # bincount/rank/scatter (distributes
                                     # via psum); k=7: global-sort build.
                                     # Bit-identical to host either way.
 
     # --- clustering (reference src/tree.rs) ---
     cluster: str = "components"     # "components" | "tree" |
-                                    # "agglomerative" (batched MXU
+                                    # "agglomerative" (batched matmul
                                     # mutual-argmax merges) | "none"
     min_shared: int = 1             # agglomerative merge gate: minimum
                                     # shared k-mers between cluster
@@ -130,9 +129,7 @@ class PipelineConfig:
             raise ValueError(f"unknown weighting mode {self.weighting!r}")
         if self.cluster not in ("components", "tree", "agglomerative", "none"):
             raise ValueError(f"unknown cluster mode {self.cluster!r}")
-        if self.engine not in (
-            "auto", "mxu", "popcount", "xla", "native", "stream"
-        ):
+        if self.engine not in ("auto", "mxu", "xla", "native", "stream"):
             raise ValueError(f"unknown engine {self.engine!r}")
         if self.index_engine not in ("host", "device"):
             raise ValueError(f"unknown index_engine {self.index_engine!r}")
@@ -159,10 +156,6 @@ class PipelineConfig:
             raise ValueError("extract_k must be >= 0")
         if self.strip is not None and self.strip % self.tile != 0:
             raise ValueError("strip must be a multiple of tile")
-        if self.tile % 8 != 0:
-            raise ValueError("tile must be a multiple of 8 (TPU sublane)")
-        if self.word_block % 128 != 0:
-            raise ValueError("word_block must be a multiple of 128 (TPU lane)")
 
     def effective_weighted_threshold(self, weights=None) -> int:
         """Alignment gate for weighted scores.

@@ -348,7 +348,7 @@ def sparse_sweep(
     must be sorted by (protein, rank), kmers/index.py's layout.
     `weights` (int8, ≥1 per rank — utils.blosum rank weights, sliced or
     padded to n_ranks) switches scores to weighted mode, matching the
-    weighted MXU sweep. Returns None when the library is unavailable.
+    weighted matmul sweep. Returns None when the library is unavailable.
     """
     lib = _load()
     if lib is None:

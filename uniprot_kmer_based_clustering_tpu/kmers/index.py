@@ -10,7 +10,7 @@ Reference pipeline (``src/main.rs:77-199``):
      dense repeated-hash space (src/protein.rs:151-174);
   4. recompute docfreq in hash space (src/main.rs:187-193).
 
-TPU-first replacement: the MPHF is an arbitrary bijection {repeated codes} →
+Device-friendly replacement: the MPHF is an arbitrary bijection {repeated codes} →
 [0, R); every downstream quantity (pairwise intersection sizes, docfreqs,
 edge counts) is invariant under that bijection. We use the **dense rank in
 ascending code order** — a deterministic minimal perfect hash by
@@ -285,7 +285,7 @@ def doc_freq_dense_device(codes, valid, k: int):
     protein-sharded mesh the final step is a ``psum`` over the protein axis.
 
     On the bundled dataset this is a [10619, ~1047] sort — trivial for the
-    TPU. For k=7 the 1.8B-slot dense table is impractical; use the host
+    device. For k=7 the 1.8B-slot dense table is impractical; use the host
     sort-based :func:`build_index` instead.
     """
     import jax.numpy as jnp

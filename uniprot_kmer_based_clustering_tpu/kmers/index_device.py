@@ -1,5 +1,5 @@
 """Device-side index build: doc-freq → rank hash → packed bitsets, all on
-TPU (k=5).
+the device (k=5).
 
 The 5-mer universe is only 21⁵ = 4,084,101 codes, so the document
 frequency is one dense ``bincount`` (distributable with a single ``psum``,

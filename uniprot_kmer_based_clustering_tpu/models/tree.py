@@ -19,7 +19,7 @@ Semantics reproduced exactly (1-thread insertion order = file order):
     other (ties → the earlier child adopts), recursively re-entering
     ``add_child`` (src/tree.rs:179-240).
 
-TPU-framework adaptation: bitsets are packed uint64 rows (the same
+Adaptation: bitsets are packed uint64 rows (the same
 rank-hash bit space as the pairwise sweep; 5-mer and 7-mer alike, the
 ``kmer_size`` plumbing of src/tree.rs:85-106 collapsing into which index
 built the bitset). Intersection sizes are hardware popcounts (the native

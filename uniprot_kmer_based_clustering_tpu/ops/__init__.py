@@ -1,8 +1,6 @@
 from uniprot_kmer_based_clustering_tpu.ops.popcount import (  # noqa: F401
     ROW_STAT_NAMES,
     pairwise_counts_xla,
-    sweep,
-    sweep_pallas,
     sweep_xla,
     upper_triangle_tiles,
 )

@@ -2,11 +2,11 @@
 
 The reference is a single-process shared-memory program whose only
 "distribution" is OS threads claiming indices off atomic counters
-(SURVEY.md §2.3). The TPU framework's distribution unit is a 1-D protein
+(SURVEY.md §2.3). This framework's distribution unit is a 1-D protein
 axis over a ``jax.sharding.Mesh``: the packed bitset matrix is sharded by
 protein rows, doc-freq reductions ride ``psum``, and the O(N²) pair sweep
 ring-rotates row blocks with ``ppermute`` (structurally the ring-attention
-schedule). Works unchanged from 1 chip to a multi-host slice: initialize
+schedule). Works unchanged from 1 device to several hosts: initialize
 ``jax.distributed`` on each host and build the mesh over all devices.
 """
 
@@ -24,12 +24,11 @@ def init_distributed(
 ) -> None:
     """Initialize multi-host JAX (call once per host before make_mesh).
 
-    On TPU pods with standard metadata, bare ``jax.distributed.initialize()``
-    autodetects everything; explicit args cover manual clusters. After this,
-    :func:`make_mesh` over ``jax.devices()`` spans the whole slice and the
-    ring sweep's ppermute rides ICI within a slice (DCN only for the final
-    psum) — the multi-host replacement for the reference's single-node
-    SLURM envelope (run.sh:3-12).
+    Bare ``jax.distributed.initialize()`` works where the cluster
+    environment describes itself (e.g. SLURM); explicit args cover manual
+    clusters. After this, :func:`make_mesh` over ``jax.devices()`` spans
+    every process's devices — the multi-host replacement for the
+    reference's single-node SLURM envelope (run.sh:3-12).
     """
     import jax
 
@@ -63,9 +62,10 @@ def make_mesh_2d(
 ) -> Mesh:
     """(hosts × chips) mesh for the hierarchical 2-D ring sweep.
 
-    On a real pod, ``jax.devices()`` orders devices process-major, so the
+    Across hosts, ``jax.devices()`` orders devices process-major, so the
     host axis of the reshape is the actual host boundary: ``ppermute`` over
-    `chip_axis` stays on ICI and only the `host_axis` rotation crosses DCN.
+    `chip_axis` stays within a host and only the `host_axis` rotation
+    crosses the network.
     """
     devs = jax.devices()
     need = n_hosts * n_chips
@@ -76,8 +76,8 @@ def make_mesh_2d(
     if jax.process_count() > 1 and n_chips != jax.local_device_count():
         # the reshape's host axis is only the REAL host boundary when
         # each row holds exactly one process's devices — otherwise every
-        # inner (chip-axis) rotation crosses DCN, silently inverting the
-        # 2-D ring's whole premise (one DCN hop per outer step)
+        # inner (chip-axis) rotation crosses hosts, silently inverting the
+        # 2-D ring's whole premise (one cross-host hop per outer step)
         raise ValueError(
             f"n_chips={n_chips} must equal the per-process device count "
             f"({jax.local_device_count()}) on a multi-host mesh"

@@ -8,7 +8,7 @@ similarity scoring variant built on it"; the natural lift of the
 shared-k-mer count to BLOSUM space is to weight each shared k-mer by its
 self-alignment score Σ_j blosum62[aa_j, aa_j] (what diamond/BLAST would
 score for the identical k-mer match). Weights lie in [4·k, 11·k] — int8
-for k ≤ 11 — so the weighted sweep runs as the same int8 MXU matmul with
+for k ≤ 11 — so the weighted sweep runs as the same int8 matmul with
 per-column scales (ops/bitmul).
 
 The matrix values below are the standard public BLOSUM62 (Henikoff &
